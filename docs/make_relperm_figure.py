@@ -69,8 +69,7 @@ def run_point(s_n: float, tau_n: float = 1.1, tau_w: float = 0.7,
         surface_tension=1.0e-4, contact_angle_deg=90.0, tau_type=2,
         wetting_type=2, beta=0.9, body_force=(0.0, g))
     model = ColorGradientRK(geo.from_solid_mask(solid), params,
-                            CGBoundaryConfig(), dtype=jnp.float64,
-                            use_pallas=False)
+                            CGBoundaryConfig(), dtype=jnp.float64)
     fl = model.geo.is_fluid
     rho_r = np.where(core & fl, 1.0, 0.0)
     rho_b = np.where(~core & fl, 1.0, 0.0)

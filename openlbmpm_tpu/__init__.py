@@ -1,13 +1,13 @@
-"""openlbmpm_tpu: a TPU-native multicomponent/multiphase lattice Boltzmann
-framework for flow and solute transport in porous media.
+"""openlbmpm_tpu: a multicomponent/multiphase lattice Boltzmann framework
+for flow and solute transport in porous media.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of
-PorousMediaSimulation/openLBMPM (reference mounted at /root/reference):
+A from-scratch JAX/XLA rebuild with the capabilities of
+PorousMediaSimulation/openLBMPM:
 Shan-Chen pseudopotential MCMP (original + explicit-forcing high-isotropy),
 Rothman-Keller color-gradient (Perturbation and CSF variants), and
 phase-confined reactive solute transport, with SRT/TRT/MRT collisions,
 Zou-He/convective/periodic boundaries, pore-image geometry, HDF5/PNG output,
-checkpoint/resume with drainage-imbibition cycles, and multi-chip domain
+checkpoint/resume with drainage-imbibition cycles, and multi-device domain
 decomposition over a ``jax.sharding.Mesh``.
 """
 

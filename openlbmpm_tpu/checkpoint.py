@@ -47,7 +47,7 @@ def save_checkpoint(path: str, state, step: int, fingerprint: str = ""):
     payload["__fingerprint__"] = np.asarray(fingerprint)
     payload["__treedef__"] = np.asarray(str(treedef))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **payload)
+    np.savez(path, **payload)  # uncompressed, as ResultWriter.write
 
 
 def load_checkpoint(path: str, like_state, fingerprint: str = ""):

@@ -1,6 +1,6 @@
 """Geometry construction: masks, pore images, buffer layers, wetting metadata.
 
-TPU-first divergence from the reference: instead of compacting pore voxels
+Divergence from the reference: instead of compacting pore voxels
 into a sparse node list with indirection tables
 (``/root/reference/ShanChen2D/ShanChenD2Q9.py:587-641``,
 ``/root/reference/RKCG2D/RKD2Q9.py:603-736``), we keep dense ``(ny, nx)``

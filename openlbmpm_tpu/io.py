@@ -70,9 +70,10 @@ class ResultWriter:
         else:
             path = os.path.join(self.out_dir,
                                 f"{self.basename}_{step:08d}.npz")
-            np.savez_compressed(path,
-                                **{k.replace("/", "__"): v
-                                   for k, v in arrays.items()})
+            # uncompressed: zlib runs at a few MB/s on PDF fields whose low
+            # bits are noise, minutes per write at 4096^2
+            np.savez(path, **{k.replace("/", "__"): v
+                              for k, v in arrays.items()})
 
     def read(self, step: int, key: str):
         """Read one dataset back (testing / restart helper)."""

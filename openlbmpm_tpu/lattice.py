@@ -1,4 +1,4 @@
-"""Lattice descriptors for the TPU-native openLBMPM rebuild.
+"""Lattice descriptors for the openLBMPM rebuild.
 
 Each lattice is a static (hashable, numpy-backed) descriptor holding the
 velocity set, quadrature weights, opposite-direction table and the MRT

@@ -1,6 +1,6 @@
 """Shared model infrastructure: the chunked run harness.
 
-TPU-first divergence from the reference: the reference re-launches ~12-15
+Divergence from the reference: the reference re-launches ~12-15
 CUDA kernels per time step from the Python host (SURVEY.md section 3) — the
 single biggest performance bug to not replicate.  Here every model exposes a
 pure ``step(state) -> state`` compiled once with ``jax.jit``; the harness

@@ -172,37 +172,6 @@ class SinglePhaseD2Q9:
         f = self._apply_bcs(f)
         return f
 
-    def make_block_step(self, steps_per_call: int = 4,
-                        rows_per_block: int | None = None,
-                        interpret: bool = False,
-                        storage: str = "f32"):
-        """Temporally-blocked fused step (see pallas/single.py).
-        ``storage='bf16'`` maps the (11, ny, nx) bfloat16 state instead
-        (``pack_state_bf16``): PDF deviations + rho hi/lo pair."""
-        from ..pallas.single import build_single_phase_fused_step
-        return build_single_phase_fused_step(
-            self.geo, self.tau, self.collision, self.body_force,
-            bc_config=self.bcs, dtype=self.dtype,
-            rows_per_block=rows_per_block, steps_per_call=steps_per_call,
-            interpret=interpret, storage=storage)
-
-    def pack_state_bf16(self, f):
-        """(9, ny, nx) -> (11, ny, nx) bfloat16 for
-        ``make_block_step(storage='bf16')``: planes 0-8 hold the
-        deviations f_i - w_i*rho, planes 9/10 rho as a hi/lo pair."""
-        w = jnp.asarray(self.lat.w, f.dtype).reshape(9, 1, 1)
-        rho = jnp.sum(f, axis=0)
-        hi = rho.astype(jnp.bfloat16)
-        lo = (rho - hi.astype(f.dtype)).astype(jnp.bfloat16)
-        dev = (f - w * rho).astype(jnp.bfloat16)
-        return jnp.concatenate([dev, hi[None], lo[None]], axis=0)
-
-    def unpack_bf16(self, s):
-        """Inverse of ``pack_state_bf16`` (up to deviation rounding)."""
-        rho = s[9].astype(self.dtype) + s[10].astype(self.dtype)
-        w = jnp.asarray(self.lat.w, self.dtype).reshape(9, 1, 1)
-        return s[:9].astype(self.dtype) + w * rho
-
     def step(self, f):
         return self._step(f)
 

@@ -1,1 +1,1 @@
-"""Compute ops for the TPU-native LBM framework (pure JAX, jit-friendly)."""
+"""Compute ops for the LBM framework (pure JAX, jit-friendly)."""

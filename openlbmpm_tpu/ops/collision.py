@@ -1,7 +1,6 @@
-"""Collision operators: BGK/SRT, TRT, MRT (moment space on the MXU).
+"""Collision operators: BGK/SRT, TRT, MRT (moment space).
 
-MRT runs as a per-site Q x Q matmul batched over the grid with einsum — XLA
-maps the contraction onto the MXU (SURVEY.md section 7, decision 3).
+MRT runs as a per-site Q x Q matrix product batched over the grid.
 Moment-space relaxation matches the reference's M^-1 S M applications
 (``ShanChenD2Q9.py:484-498``, ``AcceleratedRKGPU2D.py:1986-2017``).
 """
@@ -12,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..lattice import Lattice
+from . import common
 
 __all__ = ["bgk", "bgk_field_tau", "mrt", "mrt_variable_nu", "trt",
            "mrt_relaxation_d2q9_sc", "mrt_relaxation_d2q9_rk"]
@@ -32,7 +32,8 @@ def _moments(M: np.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     Mj = jnp.asarray(M, dtype=x.dtype)
     q = x.shape[0]
     flat = x.reshape(q, -1)
-    return (Mj @ flat).reshape(x.shape)
+    return jnp.matmul(Mj, flat, precision=common.CONTRACTION_PRECISION
+                      ).reshape(x.shape)
 
 
 def mrt(f, feq, lat: Lattice, s: np.ndarray):

@@ -4,8 +4,15 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ..lattice import Lattice
+
+# Precision of every small dense contraction in the steps (MRT moment
+# transforms, SC force G-matrix sums, transport MRT).  The GPU's default
+# f32 matmul runs in TF32, which keeps ~3 decimal digits; HIGHEST keeps
+# full f32.  Read at trace time as ``common.CONTRACTION_PRECISION``.
+CONTRACTION_PRECISION = lax.Precision.HIGHEST
 
 
 def shift(a: jnp.ndarray, dx: int, dy: int, dz: int | None = None) -> jnp.ndarray:

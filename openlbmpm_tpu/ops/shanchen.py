@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..lattice import D2Q9, IsoStencil, ISO_STENCILS
+from . import common
 from .common import shift
 
 __all__ = ["psi_identity", "psi_peng_robinson", "InteractionFields",
@@ -124,8 +125,9 @@ def interaction_force_sc(psi_k: jnp.ndarray, g_matrix: np.ndarray,
     del st4
     vx, vy = stencil_weighted_grad(psi_k, d2q9_st)  # (K, ny, nx)
     g = jnp.asarray(np.asarray(g_matrix, np.float64), dtype)
-    gvx = jnp.einsum("kj,jyx->kyx", g, vx)
-    gvy = jnp.einsum("kj,jyx->kyx", g, vy)
+    prec = common.CONTRACTION_PRECISION
+    gvx = jnp.einsum("kj,jyx->kyx", g, vx, precision=prec)
+    gvy = jnp.einsum("kj,jyx->kyx", g, vy, precision=prec)
     gs = jnp.asarray(np.asarray(g_solid, np.float64), dtype).reshape(-1, 1, 1)
     adh = jnp.asarray(fields.adhesion, dtype)
     fx = -psi_k * (gvx + gs * adh[0])
@@ -148,8 +150,9 @@ def interaction_force_efs(psi_k: jnp.ndarray, g_matrix: np.ndarray,
     dvx = vx - psi_k * fvec[0]
     dvy = vy - psi_k * fvec[1]
     g = jnp.asarray(np.asarray(g_matrix, np.float64), dtype)
-    gvx = jnp.einsum("kj,jyx->kyx", g, dvx)
-    gvy = jnp.einsum("kj,jyx->kyx", g, dvy)
+    prec = common.CONTRACTION_PRECISION
+    gvx = jnp.einsum("kj,jyx->kyx", g, dvx, precision=prec)
+    gvy = jnp.einsum("kj,jyx->kyx", g, dvy, precision=prec)
     gs = jnp.asarray(np.asarray(g_solid, np.float64), dtype).reshape(-1, 1, 1)
     adh = jnp.asarray(fields.adhesion_st, dtype)
     fx = -6.0 * psi_k * gvx - gs * psi_k * adh[0]

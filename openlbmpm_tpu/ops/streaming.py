@@ -1,6 +1,6 @@
 """Pull streaming with fused half-way bounce-back.
 
-TPU-first reformulation of the reference's push/scatter streaming
+Gather reformulation of the reference's push/scatter streaming
 (``/root/reference/ShanChen2D/OptimizedD2Q9GPU.py:452-548``): the scatter
 "push f_i to the neighbor, or reflect into the opposite slot when the
 neighbor is solid" is exactly equivalent, in gather form, to

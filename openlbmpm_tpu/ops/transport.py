@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..lattice import D2Q5, D2Q9, Lattice
+from . import common
 from .common import bcast_1d, shift
 
 __all__ = [
@@ -100,7 +101,8 @@ def mrt_collide(g, geq, update_matrices: np.ndarray):
     df = g - geq
     t, q = df.shape[0], df.shape[1]
     flat = df.reshape(t, q, -1)
-    upd = jnp.einsum("tab,tbn->tan", u, flat).reshape(df.shape)
+    upd = jnp.einsum("tab,tbn->tan", u, flat,
+                     precision=common.CONTRACTION_PRECISION).reshape(df.shape)
     return g + upd
 
 

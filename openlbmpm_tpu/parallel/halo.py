@@ -8,10 +8,9 @@ Two multi-chip modes coexist in this framework (SURVEY.md section 2.12):
    ``tests/test_multichip.py``.
 2. **Explicit** (this module): `shard_map` gives each device its local
    block; :func:`exchange_halo` ships the one-to-H-cell rim to the two x
-   neighbors with `jax.lax.ppermute` (rides ICI on hardware), and the local
-   compute runs on the padded block.  This is the hand-scheduled form that
-   a Pallas multi-chip kernel (remote DMA) would replace; it also lets the
-   halo exchange be overlapped/fused explicitly.
+   neighbors with `jax.lax.ppermute` (NVLink between GPUs of one host),
+   and the local compute runs on the padded block.  It lets the halo
+   exchange be scheduled, overlapped or fused explicitly.
 
 :func:`make_sharded_stepper` wraps a radius-bounded periodic step function
 into a shard_map step: pad with neighbor columns -> run the local step on
@@ -22,22 +21,17 @@ stencil radius <= halo and whose only x coupling is through those stencils
 
 from __future__ import annotations
 
-
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # jax >= 0.6 top-level API
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 __all__ = ["exchange_halo", "make_sharded_stepper"]
 
 
 def exchange_halo(f, halo: int, axis_name: str = "x"):
     """Pad the trailing (x) axis of a local block with `halo` columns from
-    the left/right mesh neighbors (periodic ring; `ppermute` over ICI).
+    the left/right mesh neighbors (periodic ring of `ppermute`s).
 
     f: (..., nx_local) -> (..., nx_local + 2 * halo).
     """

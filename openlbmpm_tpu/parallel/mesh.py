@@ -1,19 +1,20 @@
 """Domain decomposition over a device mesh.
 
 The reference's only parallelism is a single-GPU CUDA thread grid
-(SURVEY.md section 2.12); its TPU-native replacement is 1D/2D **domain
-decomposition** over a ``jax.sharding.Mesh``.  Because every stencil access
-in this framework is a ``jnp.roll`` / shifted gather on the dense grid, the
-XLA SPMD partitioner lowers the one-cell (iso-4) / up-to-three-cell (iso-10)
-halo reads of a sharded axis into ``collective-permute`` boundary exchanges
-over ICI automatically — the "annotate shardings, let XLA insert
-collectives" recipe.  The same step function runs unmodified on one chip
-(mesh 1x1) or a pod slice.
+(SURVEY.md section 2.12); here the domain is decomposed in 1D/2D over a
+``jax.sharding.Mesh``.  Because every stencil access in this framework is a
+``jnp.roll`` / shifted gather on the dense grid, the XLA SPMD partitioner
+lowers the one-cell (iso-4) / up-to-three-cell (iso-10) halo reads of a
+sharded axis into ``collective-permute`` boundary exchanges automatically —
+the "annotate shardings, let XLA insert collectives" recipe.  The same step
+function runs unmodified on one device (mesh 1x1) or several.  The GPUs of
+one host are joined all to all by NVLink, so no mesh axis order is cheaper
+than another.
 
 Sharding layout: fields are (..., ny, nx); we shard the trailing spatial
 axes.  By default only x is sharded ("x" mesh axis) so the row-wise
 boundary conditions (inlet/outlet rows are full x-lines) stay local; a 2D
-("y", "x") mesh is supported for square pod slices.
+("y", "x") mesh is supported as well.
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ semantics: the drainage configs of ``IniFiles/RKtwophasesetup2D.ini``
 with fixed outlet densities) — on every cheap-on-CPU step path: jnp f64
 split, jnp f32 split, jnp f32 compressed, and the f32 compressed step
 under a 2-device y-sharding.  The breakthrough step must agree across
-paths at the checking resolution.  The TPU-side companion
+paths at the checking resolution.  The accelerator-side companion
 (``benchmarks/bench_accuracy.py --part breakthrough``) runs the same
-family on the fused f32/bf16 kernels at 256^2.
+family at 256^2.
 """
 
 import jax

@@ -119,7 +119,6 @@ def test_modified_periodic_color_swap_outlet():
     bcs = CGBoundaryConfig(inlet="periodic", outlet="modified_periodic")
     model = ColorGradientRK(geo.from_solid_mask(np.zeros((n, n), bool)),
                             params, bcs, dtype=jnp.float64)
-    assert model._fused is None  # jnp path required for the seam swap
     state = model.init_state_layers(1.0, 1.0, invading_rows=6,
                                     background=0.0)
     m_tot0 = float(jnp.sum(state[0]) + jnp.sum(state[1]))
@@ -206,7 +205,7 @@ def test_compressed_state_matches_split(variant, collision):
                            inlet_velocity=-1e-4, outlet_density_r=0.0,
                            outlet_density_b=1.0)
     m = ColorGradientRK(geo.from_solid_mask(solid), params, bcs,
-                        dtype=jnp.float64, use_pallas=False)
+                        dtype=jnp.float64)
     f_r, f_b = m.init_state_layers(1.0, 1.0, invading_rows=8)
     s = m.pack_state(f_r, f_b)
     for _ in range(6):
@@ -394,7 +393,6 @@ def test_convective_average_outlet_two_phase_channel():
     bcs = CGBoundaryConfig(inlet="neumann", outlet="convective_average",
                            inlet_velocity=-2.0e-3)
     model, state = _two_phase_channel(bcs)
-    assert model._fused is None   # jnp path carries the pre-step PDFs
     m0 = float(jnp.sum(state[0]) + jnp.sum(state[1]))
     state = run_chunked(model.step, state, num_steps=2500, io_interval=500)
     f_r, f_b = state

@@ -185,7 +185,7 @@ def test_cg3d_macro_compressed_matches_split():
                                    tau_b=0.8, contact_angle_deg=60.0,
                                    body_force=(0.0, 0.0, -1e-5))
     m = ColorGradientRK3D(geo.from_solid_mask(solid), params,
-                          dtype=jnp.float64, use_pallas=False)
+                          dtype=jnp.float64)
     state = m.init_state_layers(1.0, 1.0, invading_slabs=6)
     for _ in range(3):
         state = m.step(state)

@@ -18,8 +18,12 @@ from openlbmpm_tpu.models.shanchen import ShanChenMCMP, ShanChenParams
 from openlbmpm_tpu.parallel.mesh import (domain_sharding, make_mesh,
                                          shard_domain)
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
-                                reason="needs the 8-device CPU mesh")
+
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device CPU mesh")
 
 
 def _run_sharded(model, state, steps, n_devices=8, ndim=3):
@@ -51,7 +55,7 @@ def test_csf_sharded_equals_single():
                            inlet_velocity=-1e-4, outlet_density_r=0.0,
                            outlet_density_b=1.0)
     model = ColorGradientRK(geo.from_solid_mask(solid), params, bcs,
-                            dtype=jnp.float64, use_pallas=False)
+                            dtype=jnp.float64)
     state0 = model.init_state_layers(1.0, 1.0, invading_rows=12)
 
     ref = state0
@@ -86,8 +90,7 @@ def test_sharded_2d_mesh():
     params = ColorGradientParams(variant="CSF", collision="SRT",
                                  surface_tension=0.01)
     model = ColorGradientRK(geo.from_solid_mask(np.zeros((ny, nx), bool)),
-                            params, CGBoundaryConfig(), dtype=jnp.float64,
-                            use_pallas=False)
+                            params, CGBoundaryConfig(), dtype=jnp.float64)
     state0 = model.init_state_droplet(1.0, 1.0, radius=14.0)
     ref = state0
     for _ in range(10):
@@ -110,7 +113,7 @@ def test_cg3d_sharded_equals_single():
     nz, ny, nx = 16, 16, 32
     params = ColorGradientParams3D(surface_tension=0.005)
     m = ColorGradientRK3D(geo.from_solid_mask(np.zeros((nz, ny, nx), bool)),
-                          params, dtype=jnp.float64, use_pallas=False)
+                          params, dtype=jnp.float64)
     state0 = m.init_state_droplet(1.0, 1.0, radius=5.0)
     ref = state0
     for _ in range(10):
@@ -160,270 +163,6 @@ def test_explicit_halo_exchange_matches_global():
                                rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("t_block,ny,nx,rows", [
-    (1, 64, 64, 8), (2, 64, 64, 8),
-    # T=4 is the production blocking depth (bench.py): H=16, so the
-    # shard-local grid must be >= 2H wide
-    pytest.param(4, 256, 32, 16, marks=pytest.mark.slow)])
-def test_fused_compressed_sharded_equals_single(t_block, ny, nx, rows):
-    """The production multi-chip configuration: the compressed fused Pallas
-    kernel under shard_map on a 4-shard y-mesh (interpret mode), with
-    ppermute halo slabs and scalar-prefetched global row offsets, matches
-    the single-device compressed jnp step — full BC choreography included
-    (VERDICT round 1, item 3)."""
-    from openlbmpm_tpu.pallas.csf import build_csf_sharded_step
-
-    solid = np.zeros((ny, nx), bool)
-    solid[:, 0] = solid[:, -1] = True
-    params = ColorGradientParams(variant="CSF", collision="MRT",
-                                 surface_tension=0.01, tau_type=2,
-                                 wetting_type=2)
-    bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
-                           inlet_velocity=-1e-4, outlet_density_r=0.0,
-                           outlet_density_b=1.0)
-    model = ColorGradientRK(geo.from_solid_mask(solid), params, bcs,
-                            dtype=jnp.float64, use_pallas=False)
-    mesh = make_mesh(shape=(4, 1))
-    step = build_csf_sharded_step(model.geo, params, mesh, jnp.float64,
-                                  rows_per_block=rows,
-                                  steps_per_call=t_block,
-                                  bc_config=bcs, interpret=True)
-    assert step is not None
-    s_ref = model.pack_state(*model.init_state_layers(1.0, 1.0,
-                                                      invading_rows=12))
-    s_sh = jax.device_put(s_ref, domain_sharding(mesh, 3))
-    for _ in range(4):
-        s_ref = model._step_impl_c(s_ref)
-    jstep = jax.jit(step)
-    for _ in range(4 // t_block):
-        s_sh = jstep(s_sh)
-    np.testing.assert_allclose(np.asarray(s_ref), np.asarray(s_sh),
-                               rtol=0, atol=1e-12)
-
-
-@pytest.mark.parametrize("t_block", [1, 2])
-def test_fused_compressed_2d_mesh_equals_single(t_block):
-    """Fused 2-D mesh decomposition (VERDICT round 3, item 6): the
-    compressed fused kernel under shard_map on a (2, 4) 'y' x 'x' mesh —
-    row halos AND lane halos over ppermute rings, corner data riding the
-    y exchange of the x-padded arrays — matches the single-device
-    compressed jnp step at 1e-12 with full BC choreography."""
-    from openlbmpm_tpu.pallas.csf import build_csf_sharded_step
-
-    ny, nx = 64, 256
-    solid = np.zeros((ny, nx), bool)
-    solid[:, 0] = solid[:, -1] = True
-    params = ColorGradientParams(variant="CSF", collision="MRT",
-                                 surface_tension=0.01, tau_type=2,
-                                 wetting_type=2)
-    bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
-                           inlet_velocity=-1e-4, outlet_density_r=0.0,
-                           outlet_density_b=1.0)
-    model = ColorGradientRK(geo.from_solid_mask(solid), params, bcs,
-                            dtype=jnp.float64, use_pallas=False)
-    mesh = make_mesh(shape=(2, 4))
-    step = build_csf_sharded_step(model.geo, params, mesh, jnp.float64,
-                                  rows_per_block=16,
-                                  steps_per_call=t_block,
-                                  bc_config=bcs, interpret=True)
-    assert step is not None
-    s_ref = model.pack_state(*model.init_state_layers(1.0, 1.0,
-                                                      invading_rows=12))
-    s_sh = jax.device_put(s_ref, domain_sharding(mesh, 3))
-    for _ in range(4):
-        s_ref = model._step_impl_c(s_ref)
-    jstep = jax.jit(step)
-    for _ in range(4 // t_block):
-        s_sh = jstep(s_sh)
-    np.testing.assert_allclose(np.asarray(s_ref), np.asarray(s_sh),
-                               rtol=0, atol=1e-12)
-
-
-def test_cg3d_fused_sharded_equals_single():
-    """The compressed fused D3Q19 step under a z-sharded mesh (ppermute
-    halo slabs + BC prologue on the global array) matches the
-    single-device fused step."""
-    import jax
-    from openlbmpm_tpu.models.flow3d import (CG3DBoundaryConfig,
-                                             ColorGradientParams3D,
-                                             ColorGradientRK3D)
-    from openlbmpm_tpu.pallas.cg3d import (build_cg3d_fused_step,
-                                           build_cg3d_sharded_step)
-    from openlbmpm_tpu.parallel.mesh import make_mesh
-    nz, n = 32, 16
-    solid = np.zeros((nz, n, n), bool)
-    solid[:, 0, :] = solid[:, -1, :] = True
-    params = ColorGradientParams3D(surface_tension=0.01, tau_r=1.0,
-                                   tau_b=0.8, contact_angle_deg=60.0)
-    bcs = CG3DBoundaryConfig(inlet="velocity", outlet="convective",
-                             inlet_velocity=-1e-3)
-    m = ColorGradientRK3D(geo.from_solid_mask(solid), params, bcs,
-                          dtype=jnp.float32, use_pallas=False)
-    single = build_cg3d_fused_step(m.geo, params, jnp.float32,
-                                   slabs_per_block=8, bc_config=bcs,
-                                   state_mode="compressed", interpret=True)
-    mesh = make_mesh(shape=(4, 1))
-    sharded = build_cg3d_sharded_step(m.geo, params, mesh, jnp.float32,
-                                      slabs_per_block=4, bc_config=bcs,
-                                      interpret=True)
-    assert sharded is not None
-    s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_slabs=8))
-    a = s
-    b = s
-    for _ in range(2):
-        a = single(a)
-        b = jax.jit(sharded)(b)
-    assert float(jnp.max(jnp.abs(a - b))) < 3e-5
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("scheme", ["SC", "EFS"])
-def test_sc_fused_sharded_equals_single(scheme):
-    """The fused Shan-Chen/EFS kernel under shard_map on a 4-shard y-mesh
-    (ppermute halo slabs + scalar-prefetched global row offsets) matches
-    the single-device jnp step with full BC choreography."""
-    from openlbmpm_tpu.models.shanchen import (SCBoundaryConfig,
-                                               ShanChenMCMP,
-                                               ShanChenParams)
-    from openlbmpm_tpu.pallas.shanchen import build_sc_sharded_step
-
-    ny, nx = 64, 64
-    solid = np.zeros((ny, nx), bool)
-    solid[:, 0] = solid[:, -1] = True
-    bcs = SCBoundaryConfig(inlet="zou_he_velocity", outlet="convective",
-                           inlet_velocity=(-1e-3, 0.0))
-    if scheme == "SC":
-        p = ShanChenParams(g_matrix=((0.0, 3.6), (3.6, 0.0)),
-                           g_solid=(-0.3, 0.3), tau=(1.0, 1.0))
-    else:
-        p = ShanChenParams(g_matrix=((0.0, 0.2), (0.2, 0.0)),
-                           g_solid=(-0.14, 0.14), tau=(1.0, 0.8),
-                           scheme="EFS", iso_order=8, collision="MRT")
-    m = ShanChenMCMP(geo.from_solid_mask(solid), p, bcs,
-                     dtype=jnp.float64, use_pallas=False)
-    mesh = make_mesh(shape=(4, 1))
-    step = build_sc_sharded_step(m.geo, p, mesh, jnp.float64,
-                                 rows_per_block=16, steps_per_call=2,
-                                 bc_config=bcs, interpret=True)
-    assert step is not None
-    f_ref = m.init_state_layers((1.0, 1.0), (0.02, 0.02), invading_rows=12)
-    f_sh = jax.device_put(f_ref, jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec(None, None, "y", None)))
-    stepper = m._step_sc if scheme == "SC" else m._step_efs
-    for _ in range(4):
-        f_ref = stepper(f_ref)
-    jstep = jax.jit(step)
-    for _ in range(2):
-        f_sh = jstep(f_sh)
-    np.testing.assert_allclose(np.asarray(f_ref), np.asarray(f_sh),
-                               rtol=0, atol=1e-12)
-
-
-@pytest.mark.slow
-def test_sc3d_fused_sharded_equals_single():
-    """The fused D3Q19 SC kernel under shard_map on a 4-shard z-mesh
-    (ppermute halo slabs) matches the single-device jnp step."""
-    from openlbmpm_tpu.models.flow3d import (ShanChenMCMP3D,
-                                             ShanChenParams3D)
-    from openlbmpm_tpu.pallas.sc3d import build_sc3d_sharded_step
-
-    n = 16
-    solid = np.zeros((n, n, n), bool)
-    solid[:, 0, :] = solid[:, -1, :] = True
-    p = ShanChenParams3D(g_matrix=((0.0, 3.6), (3.6, 0.0)),
-                         g_solid=(-0.3, 0.3), tau=(1.0, 0.8),
-                         body_force=(0.0, 0.0, -1e-5))
-    m = ShanChenMCMP3D(geo.from_solid_mask(solid), p, dtype=jnp.float64,
-                       use_pallas=False)
-    mesh = make_mesh(shape=(4, 1))
-    step = build_sc3d_sharded_step(m.geo, p, mesh, jnp.float64,
-                                   slabs_per_block=4, interpret=True)
-    assert step is not None
-    f_ref = m.init_state_droplet((1.0, 1.0), (0.02, 0.02), radius=5.0)
-    f_sh = jax.device_put(f_ref, jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec(None, None, "y", None, None)))
-    for _ in range(3):
-        f_ref = m._step_impl(f_ref)
-    jstep = jax.jit(step)
-    for _ in range(3):
-        f_sh = jstep(f_sh)
-    np.testing.assert_allclose(np.asarray(f_ref), np.asarray(f_sh),
-                               rtol=0, atol=1e-12)
-
-
-@pytest.mark.slow
-def test_single_fused_sharded_equals_single():
-    """The fused single-phase kernel under shard_map on a 4-shard y-mesh
-    matches the single-device jnp step (Zou-He + convective BCs)."""
-    from openlbmpm_tpu.models.single_phase import (BoundaryConfig,
-                                                   SinglePhaseD2Q9)
-    from openlbmpm_tpu.pallas.single import build_single_sharded_step
-
-    ny, nx = 64, 64
-    solid = np.zeros((ny, nx), bool)
-    solid[:, 0] = solid[:, -1] = True
-    bcs = BoundaryConfig(inlet="zou_he_velocity", outlet="convective",
-                         inlet_velocity=-1e-3)
-    m = SinglePhaseD2Q9(geo.from_solid_mask(solid), tau=0.8,
-                        collision="MRT", boundaries=bcs,
-                        dtype=jnp.float64)
-    mesh = make_mesh(shape=(4, 1))
-    step = build_single_sharded_step(m.geo, 0.8, "MRT", (0.0, 0.0), mesh,
-                                     bc_config=bcs, dtype=jnp.float64,
-                                     rows_per_block=16, steps_per_call=2,
-                                     interpret=True)
-    assert step is not None
-    f_ref = m.init_state()
-    f_sh = jax.device_put(f_ref, jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec(None, "y", None)))
-    for _ in range(4):
-        f_ref = m._step_impl(f_ref)
-    jstep = jax.jit(step)
-    for _ in range(2):
-        f_sh = jstep(f_sh)
-    np.testing.assert_allclose(np.asarray(f_ref), np.asarray(f_sh),
-                               rtol=0, atol=1e-12)
-
-
-def test_cg3d_fused_sharded_zy_mesh_equals_single():
-    """The compressed fused D3Q19 step under a (z, y) 2-D mesh — sublane
-    halo lanes exchanged over the "x" ring first, z slabs of the
-    y-padded arrays after (corners ride along) — matches the
-    single-device fused step, with y walls (wetting) crossing the
-    y-shard seams and z-face BCs."""
-    import jax
-    from openlbmpm_tpu.models.flow3d import (CG3DBoundaryConfig,
-                                             ColorGradientParams3D,
-                                             ColorGradientRK3D)
-    from openlbmpm_tpu.pallas.cg3d import (build_cg3d_fused_step,
-                                           build_cg3d_sharded_step)
-    from openlbmpm_tpu.parallel.mesh import make_mesh
-    nz, ny, nx = 16, 64, 16
-    solid = np.zeros((nz, ny, nx), bool)
-    solid[:, 0, :] = solid[:, -1, :] = True
-    params = ColorGradientParams3D(surface_tension=0.01, tau_r=1.0,
-                                   tau_b=0.8, contact_angle_deg=60.0)
-    bcs = CG3DBoundaryConfig(inlet="velocity", outlet="convective",
-                             inlet_velocity=-1e-3)
-    m = ColorGradientRK3D(geo.from_solid_mask(solid), params, bcs,
-                          dtype=jnp.float32, use_pallas=False)
-    single = build_cg3d_fused_step(m.geo, params, jnp.float32,
-                                   slabs_per_block=8, bc_config=bcs,
-                                   state_mode="compressed", interpret=True)
-    mesh = make_mesh(shape=(2, 2))
-    sharded = build_cg3d_sharded_step(m.geo, params, mesh, jnp.float32,
-                                      slabs_per_block=4, bc_config=bcs,
-                                      interpret=True)
-    assert sharded is not None
-    s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_slabs=6))
-    a = s
-    b = s
-    for _ in range(2):
-        a = single(a)
-        b = jax.jit(sharded)(b)
-    assert float(jnp.max(jnp.abs(a - b))) < 3e-5
-
-
 def test_coupled_transport_sharded_equals_single():
     """Coupled CSF flow + phase-confined tracer transport (jnp path,
     interface redistribution active) sharded over the 8-device mesh ==
@@ -445,7 +184,7 @@ def test_coupled_transport_sharded_equals_single():
                          beta_interface=(0.2,),
                          interface_mode="redistribute")
     m = TransportRK(geo.from_solid_mask(solid), fp, tp, bcs,
-                    dtype=jnp.float64, use_pallas=False)
+                    dtype=jnp.float64)
     flow0 = m.flow.init_state_layers(1.0, 1.0, invading_rows=12)
     conc0 = np.zeros((1, ny, nx))
     conc0[0, ny // 2:] = 1.0
@@ -466,138 +205,128 @@ def test_coupled_transport_sharded_equals_single():
                                    rtol=0, atol=1e-12)
 
 
-def test_coupled_fused_sharded_equals_single():
-    """The compressed fused coupled flow+transport kernel under a
-    4-shard y-mesh (ppermute halo rows for the flow state AND the
-    tracer PDFs, scalar-prefetched row offsets) matches the
-    single-device compressed coupled kernel."""
-    from openlbmpm_tpu.models.transport import (TransportParams,
-                                                TransportRK)
-    from openlbmpm_tpu.pallas.csf import (build_csf_fused_step,
-                                          build_csf_sharded_step)
-    ny, nx = 64, 64
+def _spmd_equals_single(step, state0, spec_of, mesh, steps):
+    """Run ``step`` on one device and with every state leaf placed by
+    ``spec_of(leaf)`` on ``mesh`` (XLA SPMD inserts the halo exchanges);
+    the two trajectories agree to f64 rounding."""
+    from jax.sharding import NamedSharding
+
+    ref = state0
+    sharded = jax.tree_util.tree_map(
+        lambda x: jax.device_put(x, NamedSharding(mesh, spec_of(x))), state0)
+    jstep = jax.jit(step)
+    for _ in range(steps):
+        ref = jstep(ref)
+        sharded = jstep(sharded)
+    for a, b in zip(jax.tree_util.tree_leaves(ref),
+                    jax.tree_util.tree_leaves(sharded)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=0, atol=1e-12)
+
+
+def _yx_spec(x):
+    """Trailing two axes over the ("y", "x") mesh; 1D arrays replicated."""
+    from jax.sharding import PartitionSpec as P
+    return P() if x.ndim < 2 else P(*((None,) * (x.ndim - 2) + ("y", "x")))
+
+
+def _zy_spec(x):
+    """3D fields (..., nz, ny, nx): z over "y", y over "x"."""
+    from jax.sharding import PartitionSpec as P
+    return P(*((None,) * (x.ndim - 3) + ("y", "x", None)))
+
+
+def _csf_walls_model(ny, nx, variant="CSF", collision="MRT"):
     solid = np.zeros((ny, nx), bool)
     solid[:, 0] = solid[:, -1] = True
-    fp = ColorGradientParams(variant="CSF", collision="MRT",
-                             surface_tension=0.01, tau_type=2,
-                             wetting_type=2)
+    params = ColorGradientParams(variant=variant, collision=collision,
+                                 surface_tension=0.01, tau_type=2,
+                                 wetting_type=2, alpha_r=4 / 9, alpha_b=4 / 9)
     bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
-                           inlet_velocity=-1e-3, outlet_density_r=0.0,
+                           inlet_velocity=-1e-4, outlet_density_r=0.0,
                            outlet_density_b=1.0)
+    return ColorGradientRK(geo.from_solid_mask(solid), params, bcs,
+                           dtype=jnp.float64)
+
+
+@pytest.mark.parametrize("variant,collision", [("CSF", "MRT"),
+                                               ("Perturbation", "SRT")])
+def test_compressed_spmd_2d_mesh_equals_single(variant, collision):
+    """The compressed (f_total, rho_r) jnp step under a (2, 4) 'y' x 'x'
+    mesh -- row and column halos, wetting walls and the inlet/outlet rows
+    crossing shard seams -- matches the single-device step."""
+    model = _csf_walls_model(32, 64, variant, collision)
+    s0 = model.pack_state(*model.init_state_layers(1.0, 1.0,
+                                                   invading_rows=8))
+    _spmd_equals_single(model._step_impl_c, s0, _yx_spec,
+                        make_mesh(shape=(2, 4)), 4)
+
+
+def test_cg3d_spmd_zy_mesh_equals_single():
+    """The D3Q19 CSF step with z-face inlet/outlet BCs and wetting y walls
+    under a (z, y) 2-D mesh matches the single-device step."""
+    from openlbmpm_tpu.models.flow3d import (CG3DBoundaryConfig,
+                                             ColorGradientParams3D,
+                                             ColorGradientRK3D)
+    nz, ny, nx = 16, 16, 8
+    solid = np.zeros((nz, ny, nx), bool)
+    solid[:, 0, :] = solid[:, -1, :] = True
+    params = ColorGradientParams3D(surface_tension=0.01, tau_r=1.0,
+                                   tau_b=0.8, contact_angle_deg=60.0)
+    bcs = CG3DBoundaryConfig(inlet="velocity", outlet="convective",
+                             inlet_velocity=-1e-3)
+    m = ColorGradientRK3D(geo.from_solid_mask(solid), params, bcs,
+                          dtype=jnp.float64)
+    s0 = m.init_state_layers(1.0, 1.0, invading_slabs=4)
+    _spmd_equals_single(lambda s: m._step_impl(*s), s0, _zy_spec,
+                        make_mesh(shape=(2, 2)), 3)
+
+
+def _coupled_2d():
+    from openlbmpm_tpu.models.transport import (TransportParams,
+                                                TransportRK)
+    ny, nx = 32, 32
+    model = _csf_walls_model(ny, nx)
     tp = TransportParams(num_tracers=2, scheme=5, tau=(1.0, 0.8),
                          j0=(0.25, 0.25), beta_interface=(0.2, 0.0),
                          interface_mode="bounceback")
-    m = TransportRK(geo.from_solid_mask(solid), fp, tp, bcs,
-                    dtype=jnp.float32, use_pallas=False)
-    single = build_csf_fused_step(
-        m.geo, fp, jnp.float32, rows_per_block=16, steps_per_call=1,
-        bc_config=bcs, transport_params=tp, state_mode="compressed",
-        interpret=True)
-    assert single is not None
-    from openlbmpm_tpu.parallel.mesh import make_mesh
-    mesh = make_mesh(shape=(4, 1))
-    sharded = build_csf_sharded_step(
-        m.geo, fp, mesh, jnp.float32, rows_per_block=8, steps_per_call=1,
-        bc_config=bcs, transport_params=tp, interpret=True)
-    assert sharded is not None
-    flow0 = m.flow.init_state_layers(1.0, 1.0, invading_rows=12)
+    m = TransportRK(model.geo, model.p, tp, model.bcs, dtype=jnp.float64)
     conc0 = np.zeros((2, ny, nx))
     conc0[:, ny // 2:] = 1.0
-    st = m.init_state(flow0, conc0)
-    s = m.flow.pack_state(st.f_r, st.f_b)
-    g = st.g
-    a, ga = s, g
-    b, gb = s, g
-    for _ in range(3):
-        a, ga = single(a, ga)
-        b, gb = jax.jit(sharded)(b, gb)
-    assert float(jnp.max(jnp.abs(a - b))) < 3e-5
-    assert float(jnp.max(jnp.abs(ga - gb))) < 3e-5
+    return m, m.init_state(m.flow.init_state_layers(1.0, 1.0,
+                                                    invading_rows=8), conc0)
 
 
-def test_coupled3d_fused_sharded_equals_single():
-    """The fused coupled 3D flow+transport kernel under a 4-shard z-mesh
-    (ppermute halo slabs for the flow state AND the tracer PDFs, the
-    interface bounce-back epilogue on the global sharded arrays) matches
-    the single-device fused coupled step."""
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_coupled_spmd_mesh_equals_single(shape):
+    """Coupled CSF flow + two phase-confined tracers (partition and hard
+    bounce-back) under a 4-shard y-mesh and a (2, 2) y x x mesh: flow PDFs
+    and tracer PDFs ride the same SPMD halo exchanges."""
+    m, st = _coupled_2d()
+    _spmd_equals_single(m._step_impl, st, _yx_spec, make_mesh(shape=shape),
+                        3)
+
+
+def test_coupled3d_spmd_z_mesh_equals_single():
+    """Coupled 3D flow + D3Q7 tracer (interface bounce-back) with the
+    domain split in z over 4 devices matches the single-device step."""
+    from jax.sharding import PartitionSpec as P
+
     from openlbmpm_tpu.models.flow3d import (ColorGradientParams3D,
                                              TransportRK3D)
-    from openlbmpm_tpu.pallas.cg3d import build_cg3d_sharded_step
-    from openlbmpm_tpu.parallel.mesh import make_mesh
-    nz, n = 32, 16
+    nz, n = 16, 8
     solid = np.zeros((nz, n, n), bool)
     solid[:, 0, :] = solid[:, -1, :] = True
     params = ColorGradientParams3D(surface_tension=0.01, tau_r=1.0,
                                    tau_b=0.8, contact_angle_deg=60.0)
     m = TransportRK3D(geo.from_solid_mask(solid), params, num_tracers=1,
                       tau=(1.0,), interface_mode="bounceback",
-                      dtype=jnp.float32)
-    single = m.make_fused_step(slabs_per_block=8, interpret=True)
-    assert single is not None
-    mesh = make_mesh(shape=(4, 1))
-    sharded = build_cg3d_sharded_step(
-        m.geo, params, mesh, jnp.float32, slabs_per_block=4,
-        bc_config=m.flow.bcs, transport=m.transport, interpret=True)
-    assert sharded is not None
-    f_r, f_b = m.flow.init_state_layers(1.0, 1.0, invading_slabs=8)
+                      dtype=jnp.float64)
     conc0 = np.zeros((1, nz, n, n))
     conc0[:, nz // 2:] = 1.0
-    g0 = m.transport.init_state(conc0)
-    s = m.flow.pack_state(f_r, f_b)
-    a, ga = s, g0
-    b, gb = s, g0
-    for _ in range(2):
-        a, ga = single(a, ga)
-        b, gb = jax.jit(sharded)(b, gb)
-    assert float(jnp.max(jnp.abs(a - b))) < 3e-5
-    assert float(jnp.max(jnp.abs(ga - gb))) < 3e-5
-
-
-def test_coupled_fused_sharded_2d_mesh_equals_single():
-    """Coupled flow+transport under a TRUE 2-D (2, 2) (y, x) mesh: the
-    tracer PDFs ride the same x ring permute (halo lanes) as the flow
-    state, then the y halo rows of the x-padded arrays carry the corner
-    data.  Must match the single-device compressed coupled kernel
-    (VERDICT r4 item 8)."""
-    from openlbmpm_tpu.models.transport import (TransportParams,
-                                                TransportRK)
-    from openlbmpm_tpu.parallel.mesh import make_mesh
-    from openlbmpm_tpu.pallas.csf import (build_csf_fused_step,
-                                          build_csf_sharded_step)
-    ny, nx = 64, 64
-    solid = np.zeros((ny, nx), bool)
-    solid[:, 0] = solid[:, -1] = True
-    fp = ColorGradientParams(variant="CSF", collision="MRT",
-                             surface_tension=0.01, tau_type=2,
-                             wetting_type=2)
-    bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
-                           inlet_velocity=-1e-3, outlet_density_r=0.0,
-                           outlet_density_b=1.0)
-    tp = TransportParams(num_tracers=2, scheme=5, tau=(1.0, 0.8),
-                         j0=(0.25, 0.25), beta_interface=(0.2, 0.0),
-                         interface_mode="bounceback")
-    m = TransportRK(geo.from_solid_mask(solid), fp, tp, bcs,
-                    dtype=jnp.float32, use_pallas=False)
-    single = build_csf_fused_step(
-        m.geo, fp, jnp.float32, rows_per_block=16, steps_per_call=1,
-        bc_config=bcs, transport_params=tp, state_mode="compressed",
-        interpret=True)
-    assert single is not None
-    mesh = make_mesh(shape=(2, 2))
-    sharded = build_csf_sharded_step(
-        m.geo, fp, mesh, jnp.float32, rows_per_block=8, steps_per_call=1,
-        bc_config=bcs, transport_params=tp, interpret=True)
-    assert sharded is not None
-    flow0 = m.flow.init_state_layers(1.0, 1.0, invading_rows=12)
-    conc0 = np.zeros((2, ny, nx))
-    conc0[:, ny // 2:] = 1.0
-    st = m.init_state(flow0, conc0)
-    s = m.flow.pack_state(st.f_r, st.f_b)
-    g = st.g
-    a, ga = s, g
-    b, gb = s, g
-    for _ in range(3):
-        a, ga = single(a, ga)
-        b, gb = jax.jit(sharded)(b, gb)
-    assert float(jnp.max(jnp.abs(a - b))) < 3e-5
-    assert float(jnp.max(jnp.abs(ga - gb))) < 3e-5
+    st = m.init_state(m.flow.init_state_layers(1.0, 1.0, invading_slabs=4),
+                      conc0)
+    _spmd_equals_single(
+        m._step_impl, st,
+        lambda x: P(*((None,) * (x.ndim - 3) + ("y", None, None))),
+        make_mesh(shape=(4, 1)), 2)

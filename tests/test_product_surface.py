@@ -143,8 +143,7 @@ def test_cli_run_cg_small(tmp_path):
     with open(cfg, "w") as fh:
         fh.write(txt)
     out = str(tmp_path / "out")
-    rc = cli_main(["run", cfg, "--model", "cg", "--output", out,
-                   "--no-pallas"])
+    rc = cli_main(["run", cfg, "--model", "cg", "--output", out])
     assert rc == 0
     assert os.path.exists(os.path.join(out, "metrics.jsonl"))
     assert os.path.exists(os.path.join(out, "checkpoint.npz"))
@@ -152,7 +151,7 @@ def test_cli_run_cg_small(tmp_path):
     assert any(r["step"] >= 20 for r in recs)
     # resume path: runs from the checkpoint without error
     rc2 = cli_main(["run", cfg, "--model", "cg", "--output", out,
-                    "--no-pallas", "--resume", "--steps", "10"])
+                    "--resume", "--steps", "10"])
     assert rc2 == 0
 
 
@@ -173,7 +172,7 @@ def test_cli_run_with_profile(tmp_path):
     out = str(tmp_path / "out")
     trace = str(tmp_path / "trace")
     rc = cli_main(["run", cfg, "--model", "cg", "--output", out,
-                   "--no-pallas", "--profile", trace])
+                   "--profile", trace])
     assert rc == 0
     captured = [os.path.join(dp, f) for dp, _, fs in os.walk(trace)
                 for f in fs]
@@ -222,8 +221,7 @@ def test_cli_run_sc_with_resume(tmp_path):
     open(phys_cfg, "w").write(ptxt)
     out = str(tmp_path / "out")
     rc = cli_main(["run", main_cfg, "--model", "sc",
-                   "--physics-config", phys_cfg, "--output", out,
-                   "--no-pallas"])
+                   "--physics-config", phys_cfg, "--output", out])
     assert rc == 0
     assert os.path.exists(os.path.join(out, "checkpoint.npz"))
     # resume with cycles on (swaps fluids in the buffer rows)
@@ -232,7 +230,7 @@ def test_cli_run_sc_with_resume(tmp_path):
     open(main_cfg, "w").write(txt2)
     rc2 = cli_main(["run", main_cfg, "--model", "sc",
                     "--physics-config", phys_cfg, "--output", out,
-                    "--no-pallas", "--resume", "--steps", "10"])
+                    "--resume", "--steps", "10"])
     assert rc2 == 0
 
 
@@ -262,14 +260,13 @@ def test_cli_run_cg3d_with_resume(tmp_path):
     with open(cfg, "w") as fh:
         fh.write(txt)
     out = str(tmp_path / "out3d")
-    rc = cli_main(["run", cfg, "--model", "cg3d", "--output", out,
-                   "--no-pallas"])
+    rc = cli_main(["run", cfg, "--model", "cg3d", "--output", out])
     assert rc == 0
     assert os.path.exists(os.path.join(out, "checkpoint.npz"))
     recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
     assert any(r["step"] >= 10 for r in recs)
     rc2 = cli_main(["run", cfg, "--model", "cg3d", "--output", out,
-                    "--no-pallas", "--resume", "--steps", "5"])
+                    "--resume", "--steps", "5"])
     assert rc2 == 0
     recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
     assert any(r["step"] >= 15 for r in recs)
@@ -288,13 +285,12 @@ def test_cli_run_basic_with_resume(tmp_path):
     txt = txt.replace("yDomain = 0,1023", "yDomain = 0,31")
     open(cfg, "w").write(txt)
     out = str(tmp_path / "out")
-    rc = cli_main(["run", cfg, "--model", "basic", "--output", out,
-                   "--no-pallas"])
+    rc = cli_main(["run", cfg, "--model", "basic", "--output", out])
     assert rc == 0
     recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
     assert any(r["step"] >= 20 and r["umax"] > 0 for r in recs)
     rc2 = cli_main(["run", cfg, "--model", "basic", "--output", out,
-                    "--no-pallas", "--resume", "--steps", "10"])
+                    "--resume", "--steps", "10"])
     assert rc2 == 0
 
 
@@ -311,8 +307,7 @@ def test_cli_run_sc3d_small(tmp_path):
     txt = txt.replace("DropletRadius = 8.0", "DropletRadius = 4.0")
     open(cfg, "w").write(txt)
     out = str(tmp_path / "out")
-    rc = cli_main(["run", cfg, "--model", "sc3d", "--output", out,
-                   "--no-pallas"])
+    rc = cli_main(["run", cfg, "--model", "sc3d", "--output", out])
     assert rc == 0
     assert os.path.exists(os.path.join(out, "checkpoint.npz"))
     recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
@@ -332,13 +327,12 @@ def test_cli_run_basic3d_with_resume(tmp_path):
     txt = txt.replace("TimeInterval = 500", "TimeInterval = 5")
     open(cfg, "w").write(txt)
     out = str(tmp_path / "out")
-    rc = cli_main(["run", cfg, "--model", "basic3d", "--output", out,
-                   "--no-pallas"])
+    rc = cli_main(["run", cfg, "--model", "basic3d", "--output", out])
     assert rc == 0
     recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
     assert any(r["step"] >= 10 for r in recs)
     rc2 = cli_main(["run", cfg, "--model", "basic3d", "--output", out,
-                    "--no-pallas", "--resume", "--steps", "5"])
+                    "--resume", "--steps", "5"])
     assert rc2 == 0
 
 
@@ -361,8 +355,7 @@ def test_cli_run_transport3d_small(tmp_path):
     open(fcfg, "w").write(txt)
     out = str(tmp_path / "out")
     rc = cli_main(["run", tcfg, "--model", "transport3d",
-                   "--physics-config", fcfg, "--output", out,
-                   "--no-pallas"])
+                   "--physics-config", fcfg, "--output", out])
     assert rc == 0
     recs = [json.loads(x) for x in open(os.path.join(out, "metrics.jsonl"))]
     assert recs and all(np.isfinite(r["tracer0_mass"]) for r in recs)

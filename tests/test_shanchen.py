@@ -127,7 +127,6 @@ def test_sc_true_convective_outlet():
     params = _two_fluid_params("SC", g_solid=(-0.3, 0.3))
     model = ShanChenMCMP(geo.from_solid_mask(solid), params, bcs,
                          dtype=jnp.float64)
-    assert model._fused is None  # jnp path carries the pre-step PDFs
     f = model.init_state_layers((1.0, 1.0), (0.02, 0.02), invading_rows=12)
     f = run_chunked(model.step, f, num_steps=800, io_interval=400)
     rho_k, (ux, uy) = model.macro(f)
@@ -300,7 +299,7 @@ def test_sc_three_fluids_separation_and_mass():
         g_matrix=((0.0, g, g), (g, 0.0, g), (g, g, 0.0)),
         g_solid=(0.0, 0.0, 0.0), tau=(1.0, 1.0, 1.0))
     m = ShanChenMCMP(geo.from_solid_mask(np.zeros((n, n), bool)), p,
-                     dtype=jnp.float64, use_pallas=False)
+                     dtype=jnp.float64)
     # three horizontal bands, each fluid dominant in its own third
     rho = np.full((3, n, n), 0.02)
     rho[0, : n // 3] = 1.0
@@ -345,10 +344,8 @@ def test_moving_wall_link_bb_multifluid_matches_single_phase():
 
     p = ShanChenParams(g_matrix=((0.0, 0.0), (0.0, 0.0)),
                        g_solid=(0.0, 0.0), tau=(0.8, 0.8))
-    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64,
-                     use_pallas=False, moving_wall_mask=moving,
+    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64, moving_wall_mask=moving,
                      wall_velocity=u_wall)
-    assert m.make_block_step() is None  # jnp path only, by contract
     f = m.init_state_layers((0.5, 0.5), (0.5, 0.5))
 
     sp = SinglePhaseD2Q9(geo.from_solid_mask(solid), tau=0.8,
@@ -384,8 +381,7 @@ def _body_force_channel(forcing, collision="SRT", tau=1.0, nx=34, ny=8,
     p = ShanChenParams(g_matrix=((0.0,),), g_solid=(0.0,), tau=(tau,),
                        collision=collision, body_force=(0.0, fy),
                        forcing=forcing)
-    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64,
-                     use_pallas=False)
+    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64)
     f = m.init_state_layers((1.0,), (1.0,), invading_rows=0)
     f = run_chunked(m.step, f, num_steps=steps, io_interval=steps)
     _, (ux, uy) = m.macro(f)
@@ -426,9 +422,7 @@ def test_forcing_mass_conserved_two_fluid(forcing):
     solid = np.zeros((40, 40), bool)
     p = ShanChenParams(g_matrix=((0.0, 3.6), (3.6, 0.0)),
                        g_solid=(0.0, 0.0), tau=(1.0, 0.8), forcing=forcing)
-    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64,
-                     use_pallas=False)
-    assert m.make_block_step() is None  # jnp path only, by contract
+    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64)
     f = m.init_state_droplet((1.0, 1.0), (0.02, 0.02), radius=8.0)
     mass0 = np.asarray(jnp.sum(f, axis=(1, 2, 3)))
     f = run_chunked(m.step, f, num_steps=60, io_interval=60)
@@ -444,8 +438,7 @@ def test_forcing_phase_separation(forcing):
     solid = np.zeros((48, 48), bool)
     p = ShanChenParams(g_matrix=((0.0, 3.6), (3.6, 0.0)),
                        g_solid=(0.0, 0.0), tau=(1.0, 1.0), forcing=forcing)
-    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64,
-                     use_pallas=False)
+    m = ShanChenMCMP(geo.from_solid_mask(solid), p, dtype=jnp.float64)
     f = m.init_state_droplet((1.0, 1.0), (0.02, 0.02), radius=10.0)
     f = run_chunked(m.step, f, num_steps=800, io_interval=800)
     rho_k = np.asarray(jnp.sum(f, axis=1))

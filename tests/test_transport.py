@@ -230,8 +230,7 @@ def test_redistribute_wired_into_coupled_drainage():
                          interface_mode="redistribute", conserve_mass=False)
     bcs = CGBoundaryConfig(inlet="neumann", outlet="convective",
                            inlet_velocity=-4e-3)
-    model = TransportRK(g_dom, fp, tp, boundaries=bcs, dtype=jnp.float64,
-                        use_pallas=False)
+    model = TransportRK(g_dom, fp, tp, boundaries=bcs, dtype=jnp.float64)
     flow_state = model.flow.init_state_layers(invading_rows=16)
     conc0 = np.zeros((1, ny, nx))
     conc0[0, 20:36, 1:-1] = 1.0   # tracer band in the defending (blue) phase
